@@ -72,6 +72,16 @@ class SimulationNode:
         with self._lock:
             self.sim.task.reset()
 
+    def warmup(self) -> None:
+        """Step the plant once, reset it and publish its state, so that
+        first-use compiles (a JAX plant's step, eager ops in task hooks)
+        happen before the paced loop starts, and the controller can warm
+        up on a real state message (ControllerNode.warmup)."""
+        with self._lock:
+            self.sim.step(np.zeros(self.sim.task.nu))
+            self.sim.task.reset()
+            self.bus.publish("states", self.sim.sim_state)
+
     def step_once(self) -> None:
         """One sim tick (also used directly by tests/benchmark)."""
         with self._lock:
@@ -111,9 +121,9 @@ class ControllerNode:
     Task/optimizer switches build + warm-compile the NEW controller on a
     worker thread while the old one keeps planning, then swap it in — the
     control loop never blocks on XLA compiles (the reference switches
-    in-place in milliseconds because libmujoco needs no compile; on TPU the
-    same UX needs the background warmup). ``join_switch()`` waits for the
-    swap (tests, scripted runs)."""
+    in-place in milliseconds because libmujoco needs no compile; a jitted
+    solve needs the background warmup for the same UX). ``join_switch()``
+    waits for the swap (tests, scripted runs)."""
 
     def __init__(
         self, bus: MessageBus, init_task: str, init_optimizer: str, mesh=None
@@ -218,8 +228,14 @@ class ControllerNode:
     def warmup(self) -> None:
         """Compile + run the solve once and discard the result, so the paced
         spin loop never blocks on first-jit (the reference pre-warms caches
-        before forking its nodes, judo/cli.py:126-141)."""
+        before forking its nodes, judo/cli.py:126-141). A published state
+        message is consumed first: its sim metadata is part of the solve's
+        input structure, so warming up without it would leave a second
+        compile for the first paced step."""
         with self._lock:
+            state_msg: MujocoState | None = self.bus.read("states")
+            if state_msg is not None and state_msg.qpos.shape[0] == self.controller.model.nq:
+                self.controller.update_states(state_msg)
             self.controller.update_action()
             self.controller.reset()
 

@@ -4,7 +4,7 @@ Kinematic frames, inertials, joint limits and actuator gains are the FR3's
 published parameters (the reference uses the same arm —
 judo/models/xml/fr3_components/*); the mesh collision geometry is replaced by
 capsule/box primitives sized to the arm's links so the scene runs on the
-TPU-native narrowphase. Scene layout matches the reference fr3_pick
+engine's primitive narrowphase. Scene layout matches the reference fr3_pick
 (table box + free cube + arm), including the finger-coupling equality and the
 body-distance sensors the reward reads.
 """

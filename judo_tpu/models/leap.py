@@ -6,7 +6,7 @@ actuator gains are the LEAP Hand robot's published parameters (the reference
 uses the same hardware — judo/models/xml/leap_components/*); the collision
 model here is intentionally different: every mesh is replaced by primitives
 (phalanx/palm boxes + capsule fingertips) so the scene runs entirely on the
-TPU-native primitive narrowphase, and hand self-collision is masked off via
+engine's primitive narrowphase, and hand self-collision is masked off via
 contype/conaffinity (the planner's contact budget goes to hand-cube pairs).
 
 Layout (matches the reference scene): cube freejoint body first (qpos[0:7]),

@@ -5,7 +5,7 @@ from one template with sign mirrors, the 7-DoF arm chain from a link table.
 Kinematic frames, inertials, joint limits and actuator gains are the Spot
 hardware's published parameters (the reference uses the same robot —
 judo/models/xml/spot_primitive/*); all mesh visuals are dropped, keeping only
-the primitive collision geometry, which is what both the TPU narrowphase and
+the primitive collision geometry, which is what both the engine's narrowphase and
 the planner need.
 
 Actuator order (legs FL,FR,HL,HR x (hx,hy,kn), then 7 arm joints) matches the

@@ -2,7 +2,7 @@
 
 Semantics match the reference numpy implementations in
 judo/utils/math_utils.py:6-119 (wxyz order, broadcastable leading dims);
-rewritten for jnp so they trace/jit/vmap cleanly on TPU.
+rewritten for jnp so they trace/jit/vmap cleanly.
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ def _notaknot_slopes(ts: jnp.ndarray, knots: jnp.ndarray) -> jnp.ndarray:
     """First derivatives of the not-a-knot cubic spline at each knot.
 
     Solves the standard tridiagonal system for knot slopes s_i (assembled dense;
-    N <= ~16 so a dense solve is fastest on TPU and trivially batchable).
+    N <= ~16 so a dense solve is cheap and trivially batchable).
 
     ts: (N,), knots: (..., N, nu) -> slopes (..., N, nu)
     """

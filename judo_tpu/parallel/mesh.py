@@ -1,23 +1,24 @@
-"""Device-mesh data parallelism over the rollout batch — ICI and DCN.
+"""Device-mesh data parallelism over the rollout batch — within and across hosts.
 
 The reference's only parallel axis is the candidate-rollout batch, executed as
-R CPU threads (judo/utils/mj_rollout_backend.py:32-88, SURVEY §2.2). On TPU the
+R CPU threads (judo/utils/mj_rollout_backend.py:32-88, SURVEY §2.2). Here the
 same axis shards over the device mesh: the solver annotates candidate tensors
 with a NamedSharding over the rollout axes and lets XLA/GSPMD partition the
 batched physics and insert the reward-reduction collectives (argmax / softmax
 normalization / top_k).
 
-Scale-out story (BASELINE "1 chip, 1 host, N>=2 hosts"):
+Scale-out story:
 
-- 1 chip: trivial 1-device mesh (or ``mesh=None``).
-- 1 host, k chips: ``make_rollout_mesh()`` — 1D mesh, batch split k ways,
-  reductions ride ICI.
+- 1 device: trivial 1-device mesh (or ``mesh=None``).
+- 1 host, k devices: ``make_rollout_mesh()`` — 1D mesh, batch split k ways;
+  one process drives all local devices and the reductions ride the
+  device interconnect.
 - N hosts: call ``initialize_distributed()`` first (jax.distributed bootstrap;
   one process per host), then ``make_rollout_mesh(hybrid=True)`` — a
   (hosts, devices/host) mesh whose HOST axis is outermost, so each host's
-  shard of the candidate batch lives entirely on its local chips: the only
+  shard of the candidate batch lives entirely on its local devices: the only
   cross-host traffic is the O(R) reward reduction and the O(N*nu) nominal
-  update, which GSPMD lowers to a hierarchical ICI-then-DCN collective.
+  update.
 
 The solver code is mesh-shape agnostic: ``rollout_sharding`` shards the batch
 over ALL mesh axes, so 1D single-host and 2D multi-host meshes use the same
@@ -41,26 +42,20 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Bootstrap jax.distributed for multi-host (DCN) execution.
+    """Bootstrap jax.distributed for multi-host execution.
 
-    One call per host process before any jax computation. Arguments default
-    to the standard env vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID); on managed TPU pods jax auto-detects and all three may
-    be omitted. Idempotent: safe to call when already initialized or when
-    running single-process (no coordinator configured).
+    One call per host process before any jax computation, with the
+    coordinator's ``host:port``, the process count and this process's id
+    (arguments, or the env vars JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID). Without a coordinator this is a no-op (single process:
+    one process drives every local device). Idempotent: safe to call when
+    already initialized.
 
     Replaces: nothing in the reference — judo is single-host by design
-    (SURVEY §5.8); this is the TPU build's DCN scale-out entry point.
+    (SURVEY §5.8); this is the multi-host scale-out entry point.
     """
     coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coordinator_address is None and num_processes is None:
-        # single-host / auto-detected TPU pod: initialize only when the
-        # runtime looks multi-process, otherwise this is a no-op
-        if os.environ.get("TPU_WORKER_HOSTNAMES") or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"):
-            try:
-                jax.distributed.initialize()
-            except RuntimeError:  # already initialized
-                pass
         return
     if num_processes is not None and coordinator_address is None:
         raise ValueError(
@@ -86,12 +81,12 @@ def make_rollout_mesh(
 ) -> Mesh:
     """Mesh over the rollout-batch axis.
 
-    ``hybrid=False``: 1D (rollouts,) mesh — single host, ICI only.
+    ``hybrid=False``: 1D (rollouts,) mesh — single host.
     ``hybrid=True``:  2D (hosts, rollouts) mesh with the host axis outermost;
     ``devices_per_host`` defaults to ``jax.local_device_count()``. jax orders
     ``jax.devices()`` process-major, so reshaping to (hosts, local) puts each
-    host's chips in one row and the batch shard for a host never crosses DCN
-    except in the final reductions.
+    host's devices in one row and the batch shard for a host never crosses
+    hosts except in the final reductions.
     """
     if devices is None:
         devices = jax.devices()
@@ -114,7 +109,7 @@ def resolve_mesh(spec) -> Mesh | None:
     - ``None`` / ``"none"`` / ``""``: no mesh (single-device solve).
     - ``"auto"``: 1D mesh over all visible devices, or None when only one
       device is visible (so CLI defaults work unchanged on a laptop CPU or a
-      single chip).
+      single GPU).
     - ``"hybrid"``: (hosts, devices/host) mesh; call
       ``initialize_distributed()`` first on multi-host deployments.
     - a ``jax.sharding.Mesh``: passed through.
@@ -136,7 +131,8 @@ def resolve_mesh(spec) -> Mesh | None:
 
 def rollout_sharding(mesh: Mesh) -> NamedSharding:
     """Sharding for (R, ...) tensors: batch split over ALL mesh axes (a 1D
-    mesh splits over ICI; a hybrid mesh splits hosts-outer, chips-inner)."""
+    mesh splits over local devices; a hybrid mesh splits hosts-outer,
+    devices-inner)."""
     return NamedSharding(mesh, PartitionSpec(tuple(mesh.axis_names)))
 
 

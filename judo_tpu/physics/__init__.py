@@ -1,4 +1,4 @@
-"""TPU-native batched rigid-body physics.
+"""Batched rigid-body physics in JAX.
 
 This subpackage replaces the reference's CPU rollout engines — the threaded
 ``mujoco.rollout`` backend (judo/utils/mj_rollout_backend.py) and the C++

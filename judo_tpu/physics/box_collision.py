@@ -9,9 +9,8 @@ to a single point (slot 0).
 Everything is branch-free AND gather-free: dynamic selections (best SAT axis,
 face axis indices, deepest-k points) are expressed as one-hot vectors built
 from comparisons (``iota == argmax`` / rank-counting), applied with small
-matmuls — a dynamic-index gather inside the rollout scan costs ~36 us on v5e
-(scratch/micro_overhead.py) while the one-hot form fuses into the
-surrounding elementwise graph. This is the workhorse of the leap_cube / fr3 /
+matmuls — the one-hot form fuses into the surrounding elementwise graph
+where a dynamic-index gather inside the rollout scan would not. This is the workhorse of the leap_cube / fr3 /
 spot contact scenes, replacing MuJoCo's dynamic-count mjc_BoxBox.
 """
 
@@ -141,8 +140,7 @@ def box_box(pos1, mat1, size1, pos2, mat2, size2) -> PairContacts:
     # The 4 verts lie exactly on the incident-face plane, so w is affine in
     # (u, v): w = w0 + gu*(u-u0) + gv*(v-v0). The plane normal (in ref-local
     # coords) comes from a single cross product of two in-plane edge vectors
-    # (closed form; an lstsq here lowers to an SVD while-loop on TPU and
-    # dominated the whole leap_cube step at ~20x the rest of narrowphase).
+    # (closed form; an lstsq here lowers to an SVD while-loop).
     n_pl = jnp.cross(vl[1] - vl[0], vl[2] - vl[0])
     n_u = jnp.dot(n_pl, r_u)
     n_v = jnp.dot(n_pl, r_v)

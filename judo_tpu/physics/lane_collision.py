@@ -6,13 +6,10 @@ contact parameters), with every geometric quantity shaped (P, ..., B): all
 same-type candidate pairs are processed by ONE kernel invocation on stacked
 tensors instead of a Python loop of per-pair (3, B) ops.
 
-Why stacked: inside the Pallas step a (3, B) op occupies 3 sublanes of one
-8x128 vreg and the per-pair loop serializes ~80 such ops x 15 box-box pairs
+Why stacked: the per-pair loop serializes ~80 small ops x 15 box-box pairs
 into a >1000-op dependency chain; stacking pairs into the leading axis makes
-each op (P, 3, B) — P x fewer instructions, full-height vregs, and the
-per-pair chains run in parallel through the VPU pipeline. Measured on the
-leap_cube fused rollout this halves the collision+assembly stage cost
-(scratch/r5_fused_stage*.txt).
+each op (P, 3, B) — P x fewer operations, and the per-pair chains run in
+parallel.
 
 Dynamic selections (SAT best axis, deepest-k points) are expressed as
 first-true / rank one-hot algebra over comparison masks — no argsort, no
@@ -109,8 +106,7 @@ def _segment_segment(p1, q1, p2, q2):
 def _e3(v, like: jnp.ndarray) -> jnp.ndarray:
     """Constant direction broadcast to the shape of ``like`` ((..., 3, B)).
 
-    jnp.full-based (const_col): Pallas kernels cannot capture literal-array
-    constants — only scalar splats inline."""
+    jnp.full-based (const_col)."""
     from judo_tpu.physics.lane_engine import const_col
 
     return jnp.broadcast_to(const_col(v, like.dtype), like.shape)
@@ -449,8 +445,7 @@ def _k_box_box(x1, m1, s1, x2, m2, s2):
 
     dist = _tree_max(jnp.where(valids_s, seps_s, neg_inf))
     # argmax with first-index tiebreak as a rank-0 one-hot: the pairwise-rank
-    # form is log-depth, vs a 15-step serial first-true chain (the kernel is
-    # bound by dependent-op latency — see pallas_step's multi-chain note)
+    # form is log-depth, vs a 15-step serial first-true chain
     ranks = _rank_stacked(-scores_s)  # rank 0 = largest score, earliest index
     oh_s = (ranks == 0).astype(dtype)  # (15, P, B)
     oh = [oh_s[i] > 0.5 for i in range(15)]

@@ -1,30 +1,23 @@
-"""Batch-in-lanes physics engine: the whole step as one fused TPU kernel.
+"""Batch-in-lanes physics engine: the step with the batch in the last axis.
 
-This is the performance formulation of the engine in smooth.py/collision.py/
-solver.py/step.py, re-laid-out for the TPU vector unit:
+This is the second formulation of the engine in smooth.py/collision.py/
+solver.py/step.py, re-laid-out batch-last:
 
-- Every dynamic quantity is an array whose LAST axis is the rollout batch
-  (the hardware lane dimension, 128 wide on v5e): a per-lane scalar is (B,),
-  a 3-vector is (3, B), the mass matrix is (nv, nv, B), the constraint
-  Jacobian is (nefc, nv, B). One vector instruction then advances all B
-  rollouts at once.
+- Every dynamic quantity is an array whose LAST axis is the rollout batch:
+  a per-lane scalar is (B,), a 3-vector is (3, B), the mass matrix is
+  (nv, nv, B), the constraint Jacobian is (nefc, nv, B). One elementwise op
+  then advances all B rollouts at once.
 - Tree loops (bodies, joints, contacts) run at *trace* time over the static
   model topology, emitting straight-line code — the same strategy as
-  smooth.py, but here the whole step body is compiled as ONE Pallas kernel
-  (pallas_step.py), so there are no XLA fusion boundaries, no HBM round trips
-  for intermediates, and no per-op scheduling overhead between the ~2k ops of
-  a contact-rich step. Measured on v5e, the vmap(single-state) formulation
-  spends ~10-50x the VPU speed-of-light on exactly that overhead
-  (scratch/profile_out.txt: 2.9 ms/step at batch 320 for ~7 MFLOP/step/lane).
-- Mass-matrix factorizations are EXACT every step (Gauss-Jordan in lanes is
-  a few thousand VPU cycles inside the kernel), so the Newton-Schulz
-  temporal-warm-start machinery of step.py is unnecessary on this path; the
-  only carried state is (qpos, qvel, efc force warm-start).
+  smooth.py; lane_rollout.py scans the whole step over the horizon.
+- Mass-matrix factorizations are EXACT every step (Gauss-Jordan in lanes),
+  so the Newton-Schulz temporal-warm-start machinery of step.py is
+  unnecessary on this path; the only carried state is (qpos, qvel, efc force
+  warm-start).
 
-The functions are pure jnp on (…, B) arrays, so the identical code runs
-(a) inside a Pallas TPU kernel and (b) under plain jit on CPU — which is how
-parity with the reference formulation (step.py) is tested without TPU
-hardware.
+The functions are pure jnp on (…, B) arrays and run under plain jit on any
+JAX backend; parity with the reference formulation (step.py) is tested on
+the CPU.
 
 Semantics replaced: the rollout hot loops of the reference
 (judo/utils/mj_rollout_backend.py:84 — R CPU threads x T x mj_step;
@@ -71,9 +64,7 @@ def v3(x, y, z) -> jnp.ndarray:
 def const_rows(vals, B: int, dtype) -> jnp.ndarray:
     """(n, B) constant from host scalars.
 
-    Built exclusively from scalar broadcasts (jnp.full) — NEVER a literal
-    array — because Pallas kernels cannot capture array constants (they must
-    be passed as inputs); scalar constants are inlined fine.
+    Built from scalar broadcasts (jnp.full) rather than a literal array.
     """
     flat = np.asarray(vals, np.float64).reshape(-1)
     return jnp.stack([jnp.full(B, float(v), dtype) for v in flat])
@@ -85,14 +76,14 @@ def const_col(vals, dtype) -> jnp.ndarray:
 
 
 def eye_mask(n: int, dtype) -> jnp.ndarray:
-    """(n, n, 1) identity mask from iota comparisons (pallas-safe eye)."""
+    """(n, n, 1) identity mask from iota comparisons (no literal-array constant)."""
     io_r = jax.lax.broadcasted_iota(jnp.int32, (n, n, 1), 0)
     io_c = jax.lax.broadcasted_iota(jnp.int32, (n, n, 1), 1)
     return (io_r == io_c).astype(dtype)
 
 
 def onehot_row(n: int, idx: int, dtype) -> jnp.ndarray:
-    """(n, 1) one-hot from an iota comparison (pallas-safe basis vector)."""
+    """(n, 1) one-hot from an iota comparison (no literal-array constant)."""
     io = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
     return (io == idx).astype(dtype)
 
@@ -101,11 +92,9 @@ def usum(x: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Sum over a SMALL static axis, unrolled into an explicit BALANCED TREE
     of adds.
 
-    Mosaic's vector.multi_reduction rejects float ADD reductions whose input
-    layout has nonzero offsets over the reduced dims (which slices of stacked
-    matrices routinely have); unrolled adds always lower. The tree (depth
-    log2 n) matters because these reductions sit on the step's dependency
-    chains — a linear chain of n adds serializes at per-op latency.
+    The tree (depth log2 n) matters because these reductions sit on the
+    step's dependency chains — a linear chain of n adds serializes at per-op
+    latency.
     """
     n = x.shape[axis]
     axis = axis % x.ndim
@@ -219,11 +208,8 @@ def _c(m: PhysicsModel, arr, dtype) -> np.ndarray:
 #
 # Why this exists: the kinematics tree recursion is a long SEQUENTIAL chain,
 # and in the stacked (4, B)/(3, B) representation every link goes
-# stack -> row-slice -> stack: each is a Mosaic sublane relayout whose latency
-# sits on the critical path (measured: the leap body loop alone was 235 us/step
-# in-kernel while the same arithmetic on plain (B,) registers costs ~2 us —
-# scratch/kin_bisect.py). In the tuple domain the chain is pure elementwise
-# arithmetic on lane registers; constants stay python floats so
+# stack -> row-slice -> stack, a relayout on the critical path. In the tuple
+# domain the chain is pure elementwise arithmetic on (B,) arrays; constants stay python floats so
 # constant x constant subexpressions fold at trace time. Values are stacked
 # into (3, B)/(4, B)/(3, 3, B) arrays ONCE at stage boundaries.
 # ---------------------------------------------------------------------------
@@ -406,7 +392,7 @@ def kinematics_l(m: PhysicsModel, qpos: jnp.ndarray) -> LaneKin:
 
     def cvec(arr: np.ndarray) -> tuple:
         """(n, k) host constants -> k-tuple of (n, 1) jnp.full columns
-        (pallas-safe: no literal-array constants)."""
+        (no literal-array constants)."""
         a = np.asarray(arr, np.float64)
         return tuple(const_col(a[:, k], dtype) for k in range(a.shape[1]))
 
@@ -496,8 +482,8 @@ def com_l(m: PhysicsModel, kin: LaneKin) -> LaneCom:
     for b in range(m.nbody):
         R = kin.ximat[b]  # (3,3,B)
         # inertia_world = R diag(I) R^T = sum_k I_k outer(R[:,k], R[:,k])
-        # (scalar-weighted outer products of static SLICES — int+None mixed
-        # indexing lowers to a >2D gather, which Mosaic cannot lower)
+        # (scalar-weighted outer products of static SLICES, not int+None
+        # mixed indexing, which lowers to a gather)
         iw = sum(
             float(inertia[b, k]) * R[:, k : k + 1, :] * jnp.swapaxes(R[:, k : k + 1, :], 0, 1)
             for k in range(3)
@@ -840,7 +826,7 @@ def spd_inverse_l(a: jnp.ndarray) -> jnp.ndarray:
     """Explicit SPD inverse of (n, n, B) via Gauss-Jordan (no pivoting).
 
     The lanes analogue of linalg.spd_inverse — per column two rank-1 updates
-    over the full (n, n, B) block; a few thousand VPU cycles in-kernel."""
+    over the full (n, n, B) block."""
     n = a.shape[0]
     dtype = a.dtype
     x = jnp.broadcast_to(eye_mask(n, dtype), a.shape)
@@ -850,7 +836,7 @@ def spd_inverse_l(a: jnp.ndarray) -> jnp.ndarray:
         notj = (io != j).astype(dtype)  # (n, 1)
         f = a[:, j, :] * notj / d[None, :]  # (n, B)
         # pivot rows as static slices — a[j, None] (int+None indexing) lowers
-        # to a >2D gather, which Mosaic cannot lower
+        # to a gather
         a = a - f[:, None, :] * a[j : j + 1, :, :]
         x = x - f[:, None, :] * x[j : j + 1, :, :]
     diag = jnp.stack([a[j, j] for j in range(n)])  # (n, B)

@@ -10,7 +10,8 @@ across the two formulations.
 Differences vs the XLA-path solver (both intentional):
 - mass-matrix inverses are exact every step (cheap in-kernel), so there is no
   Newton-Schulz chain and no divergence-guard machinery;
-- all contractions over the constraint-row axis are CHUNKED to bound VMEM.
+- all contractions over the constraint-row axis are CHUNKED to bound the
+  size of their intermediates.
 
 Both paths share the same APGD formulation: Jacobi preconditioning by
 MuJoCo's invweight diagApprox + regularizer, and the Collatz-Wielandt
@@ -104,7 +105,7 @@ def impedance_lc(solimp: np.ndarray, pos: jnp.ndarray) -> jnp.ndarray:
     for r, idxs in uniq.items():
         ind = np.zeros(len(rows))
         ind[idxs] = 1.0
-        w = const_col(ind, pos.dtype)  # (C, 1) jnp.full-based (pallas-safe)
+        w = const_col(ind, pos.dtype)  # (C, 1) jnp.full-based
         out = out + w * impedance_l(np.asarray(r), pos)
     return out
 
@@ -125,16 +126,9 @@ def kb_from_solref_np(solref: np.ndarray, solimp: np.ndarray, timestep: float) -
 def jt_vec_chunked(J: jnp.ndarray, f: jnp.ndarray, C: int = 32) -> jnp.ndarray:
     """J^T f: (nefc, nv, B), (nefc, B) -> (nv, B).
 
-    One full-product NATIVE reduction (jnp.sum / vector.multi_reduction): the
-    (nefc, nv, B) product peaks at 2.6 MB f32 per 128-lane tile on leap —
-    comfortably inside the kernel's 100 MB VMEM budget — and the native
-    reduce is ~3x faster than chunk-unrolled adds at these shapes
-    (scratch/r4_reduce_micro.py; end-to-end iteration slope 11.5 -> 5.5
-    us/step). Mosaic's ADD multi_reduction requires zero layout offsets
-    over the reduced dims, and products whose nv is below one sublane
-    granule (< 8 — e.g. cylinder_push's nv=4) pick offset layouts and fail
-    to lower: those fall back to the tree-unrolled sum (cheap at that
-    size). ``C`` kept for signature compatibility."""
+    One full-product reduction (jnp.sum) when nv >= 8; smaller products
+    (e.g. cylinder_push's nv=4) use the tree-unrolled sum. ``C`` kept for
+    signature compatibility."""
     del C
     if J.shape[1] >= 8:
         return jnp.sum(J * f[:, None, :], axis=0)
@@ -144,10 +138,8 @@ def jt_vec_chunked(J: jnp.ndarray, f: jnp.ndarray, C: int = 32) -> jnp.ndarray:
 def j_vec_chunked(J: jnp.ndarray, v: jnp.ndarray, C: int = 32) -> jnp.ndarray:
     """J v: (nefc, nv, B), (nv, B) -> (nefc, B) (see jt_vec_chunked).
 
-    Mosaic's ADD multi_reduction requires zero layout offsets over the
-    reduced dim; products with nv < 8 (under one sublane granule — e.g.
-    cylinder_push's nv=4) pick offset layouts and fail to lower, so those
-    fall back to the tree-unrolled sum (they're cheap at that size anyway)."""
+    Products with nv < 8 (e.g. cylinder_push's nv=4) use the tree-unrolled
+    sum."""
     del C
     if J.shape[1] >= 8:
         return jnp.sum(J * v[None, :, :], axis=1)
@@ -293,8 +285,7 @@ def assemble_constraints_l(
             nk[2] * t1k[0] - nk[0] * t1k[2],
             nk[0] * t1k[1] - nk[1] * t1k[0],
         ]
-        # jnp.full-based constant columns: Pallas kernels cannot capture
-        # literal-array constants (lane_engine.const_col note)
+        # jnp.full-based constant columns (lane_engine.const_col)
         cc1 = lambda v: const_col(np.asarray(v, np.float64), dtype)  # noqa: E731
         cmask = lambda bs: jnp.stack(  # noqa: E731 — (C, nv, 1) dof masks
             [const_col(body_dof_mask[b], dtype) for b in bs]
@@ -413,7 +404,6 @@ def solve_dual_qp_l(
     mus: list | None = None,
     diag: jnp.ndarray | None = None,
     cw_v: jnp.ndarray | None = None,
-    in_pallas: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """min_{f in K} 0.5 f^T (J M^-1 J^T + diag(reg)) f + f^T b, APGD in lanes.
 
@@ -425,15 +415,7 @@ def solve_dual_qp_l(
     ``mus`` (static per-contact friction list) is given, the product of
     per-contact second-order cones {||f_t|| <= mu f_n} over the GROUPED
     elliptic rows [normals | t1s | t2s] starting at ``ncon_start`` — the
-    projection is three static slices + elementwise math (Mosaic-safe).
-
-    ``in_pallas``: pin the scaled J in an EXPLICIT VMEM scratch buffer
-    (pl.run_scoped). Left as an SSA value, Mosaic parks the ~2.6 MB array in
-    HBM under the full step's pressure and every APGD iteration re-streams
-    it twice — measured 5.5 us/iteration, exactly 2 x 2.6 MB / HBM BW,
-    versus ~0.2 us for the same body with J resident
-    (scratch/r4_reduce_micro*.py). Reading the ref at each use keeps the
-    loop on VMEM bandwidth.
+    projection is three static slices + elementwise math.
     """
     dtype = b.dtype
     nefc, nv = J.shape[0], J.shape[1]
@@ -496,108 +478,95 @@ def solve_dual_qp_l(
         def project(z):
             return jnp.maximum(z, 0.0)
 
-    def core(get_J):
-        def apply_A(f):
-            Jr = get_J()
-            return j_vec_chunked(Jr, minv_mv(jt_vec_chunked(Jr, f, C)), C) + reg * f
+    def apply_A(f):
+        return j_vec_chunked(J, minv_mv(jt_vec_chunked(J, f, C)), C) + reg * f
 
-        cw_v_out = jnp.ones_like(b) if cw_v is None else cw_v
-        if lipschitz == "cw":
-            # Collatz-Wielandt upper bound: with B := |J| |M^-1| |J|^T +
-            # diag(reg) (entrywise abs; J/reg already Jacobi-scaled above),
-            # |A| <= B entrywise so lambda_max(A) <= rho(B) <= max_i
-            # (Bv)_i/v_i for any positive v — a GUARANTEED bound, measured
-            # 1.5-2.6x lambda_max vs 31-74x for the Hoelder norms.
-            #
-            # With ``cw_v`` carried across physics steps (the rollout paths),
-            # ONE apply refines it per step — a power iteration distributed
-            # over time, converging to B's Perron vector while every
-            # intermediate still yields a valid bound (CW holds for ANY
-            # positive v). Cold calls (cw_v=None) pay 3 warmup applies.
-            def apply_B(v):
-                aJ = jnp.abs(get_J())
-                return j_vec_chunked(aJ, aminv_mv(jt_vec_chunked(aJ, v, C)), C) + reg * v
+    cw_v_out = jnp.ones_like(b) if cw_v is None else cw_v
+    if lipschitz == "cw":
+        # Collatz-Wielandt upper bound: with B := |J| |M^-1| |J|^T +
+        # diag(reg) (entrywise abs; J/reg already Jacobi-scaled above),
+        # |A| <= B entrywise so lambda_max(A) <= rho(B) <= max_i
+        # (Bv)_i/v_i for any positive v — a GUARANTEED bound, measured
+        # 1.5-2.6x lambda_max vs 31-74x for the Hoelder norms.
+        #
+        # With ``cw_v`` carried across physics steps (the rollout paths),
+        # ONE apply refines it per step — a power iteration distributed
+        # over time, converging to B's Perron vector while every
+        # intermediate still yields a valid bound (CW holds for ANY
+        # positive v). Cold calls (cw_v=None) pay 3 warmup applies.
+        def apply_B(v):
+            aJ = jnp.abs(J)
+            return j_vec_chunked(aJ, aminv_mv(jt_vec_chunked(aJ, v, C)), C) + reg * v
 
-            if cw_v is None:
-                v = jnp.ones_like(b)
-                for _ in range(3):
-                    bv = apply_B(v)
-                    nrm = jax.lax.rsqrt(jnp.maximum(usum(bv * bv, 0), _MINVAL))
-                    v = bv * nrm[None]
-            else:
-                # carried probe: keep it positive and normalized (guards
-                # against accumulated underflow in long rollouts)
-                nrm = jax.lax.rsqrt(jnp.maximum(usum(cw_v * cw_v, 0), _MINVAL))
-                v = jnp.maximum(cw_v * nrm[None], 1e-7)
-            bv = apply_B(v)
-            L = jnp.max(bv / jnp.maximum(v, 1e-12), axis=0)  # (B,)
-            nrm = jax.lax.rsqrt(jnp.maximum(usum(bv * bv, 0), _MINVAL))
-            cw_v_out = bv * nrm[None]
-        elif lipschitz == "power":
-            # from-below norm-ratio estimate x1.25 — NOT a valid bound;
-            # diverges on stiff scenes (measured). Experiments only.
-            v = jnp.maximum(jnp.abs(b), 1e-3)
-            lam = jnp.ones(b.shape[-1], dtype)
-            for _ in range(4):
-                av = apply_A(v)
-                nrm_av = jnp.sqrt(jnp.maximum(usum(av * av, 0), _MINVAL))
-                nrm_v = jnp.sqrt(jnp.maximum(usum(v * v, 0), _MINVAL))
-                lam = nrm_av / nrm_v  # ||Av||/||v|| <= lambda_max for PSD A
-                v = av / nrm_av[None]
-            L = 1.25 * jnp.maximum(lam, _MINVAL) + jnp.max(reg, axis=0)
-        else:  # "holder": the reference two-factor bound (always valid)
-            assert dense_minv, "holder Lipschitz needs a dense minv (use lipschitz='cw' for blocks)"
-            Jh = get_J()
+        if cw_v is None:
+            v = jnp.ones_like(b)
+            for _ in range(3):
+                bv = apply_B(v)
+                nrm = jax.lax.rsqrt(jnp.maximum(usum(bv * bv, 0), _MINVAL))
+                v = bv * nrm[None]
+        else:
+            # carried probe: keep it positive and normalized (guards
+            # against accumulated underflow in long rollouts)
+            nrm = jax.lax.rsqrt(jnp.maximum(usum(cw_v * cw_v, 0), _MINVAL))
+            v = jnp.maximum(cw_v * nrm[None], 1e-7)
+        bv = apply_B(v)
+        L = jnp.max(bv / jnp.maximum(v, 1e-12), axis=0)  # (B,)
+        nrm = jax.lax.rsqrt(jnp.maximum(usum(bv * bv, 0), _MINVAL))
+        cw_v_out = bv * nrm[None]
+    elif lipschitz == "power":
+        # from-below norm-ratio estimate x1.25 — NOT a valid bound;
+        # diverges on stiff scenes (measured). Experiments only.
+        v = jnp.maximum(jnp.abs(b), 1e-3)
+        lam = jnp.ones(b.shape[-1], dtype)
+        for _ in range(4):
+            av = apply_A(v)
+            nrm_av = jnp.sqrt(jnp.maximum(usum(av * av, 0), _MINVAL))
+            nrm_v = jnp.sqrt(jnp.maximum(usum(v * v, 0), _MINVAL))
+            lam = nrm_av / nrm_v  # ||Av||/||v|| <= lambda_max for PSD A
+            v = av / nrm_av[None]
+        L = 1.25 * jnp.maximum(lam, _MINVAL) + jnp.max(reg, axis=0)
+    else:  # "holder": the reference two-factor bound (always valid)
+        assert dense_minv, "holder Lipschitz needs a dense minv (use lipschitz='cw' for blocks)"
+        Jh = J
 
-            def ob(mat, row_axis, col_axis):
-                l1 = jnp.max(usum(jnp.abs(mat), row_axis), axis=0)  # (B,)
-                linf = jnp.max(usum(jnp.abs(mat), col_axis), axis=0)
-                return jnp.sqrt(jnp.maximum(l1 * linf, _MINVAL))
+        def ob(mat, row_axis, col_axis):
+            l1 = jnp.max(usum(jnp.abs(mat), row_axis), axis=0)  # (B,)
+            linf = jnp.max(usum(jnp.abs(mat), col_axis), axis=0)
+            return jnp.sqrt(jnp.maximum(l1 * linf, _MINVAL))
 
-            B_ = b.shape[-1]
-            row_abs_sum = jnp.zeros((nv, B_), dtype)  # sum_r |K[k, r]| per k
-            col_max = jnp.zeros(B_, dtype)  # max_r sum_k |K[k, r]|
-            for r0 in range(0, nefc, C):
-                Jc = Jh[r0 : r0 + C]  # (c, nv, B)
-                Kc = None  # (nv, c, B) = M^-1 J[r0:r0+C]^T
-                for k in range(nv):
-                    t = minv[:, k, :][:, None, :] * Jc[:, k, :][None, :, :]
-                    Kc = t if Kc is None else Kc + t
-                aK = jnp.abs(Kc)
-                row_abs_sum = row_abs_sum + usum(aK, 1)
-                col_max = jnp.maximum(col_max, jnp.max(usum(aK, 0), axis=0))
-            obK = jnp.sqrt(jnp.maximum(jnp.max(row_abs_sum, axis=0) * col_max, _MINVAL))
+        B_ = b.shape[-1]
+        row_abs_sum = jnp.zeros((nv, B_), dtype)  # sum_r |K[k, r]| per k
+        col_max = jnp.zeros(B_, dtype)  # max_r sum_k |K[k, r]|
+        for r0 in range(0, nefc, C):
+            Jc = Jh[r0 : r0 + C]  # (c, nv, B)
+            Kc = None  # (nv, c, B) = M^-1 J[r0:r0+C]^T
+            for k in range(nv):
+                t = minv[:, k, :][:, None, :] * Jc[:, k, :][None, :, :]
+                Kc = t if Kc is None else Kc + t
+            aK = jnp.abs(Kc)
+            row_abs_sum = row_abs_sum + usum(aK, 1)
+            col_max = jnp.maximum(col_max, jnp.max(usum(aK, 0), axis=0))
+        obK = jnp.sqrt(jnp.maximum(jnp.max(row_abs_sum, axis=0) * col_max, _MINVAL))
 
-            L = ob(Jh, 0, 1) * obK + jnp.max(reg, axis=0)
-        step = 1.0 / jnp.maximum(L, _MINVAL)  # (B,)
+        L = ob(Jh, 0, 1) * obK + jnp.max(reg, axis=0)
+    step = 1.0 / jnp.maximum(L, _MINVAL)  # (B,)
 
-        f0 = jnp.zeros_like(b) if f_warm is None else project(f_warm / jnp.maximum(inv_s, _MINVAL))
+    f0 = jnp.zeros_like(b) if f_warm is None else project(f_warm / jnp.maximum(inv_s, _MINVAL))
 
-        def body(_, carry):
-            f, y, t = carry
-            grad = apply_A(y) + b
-            f_new = project(y - step[None] * grad)
-            t_new = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * t * t))
-            y_new = f_new + ((t - 1.0) / t_new)[None] * (f_new - f)
-            restart = usum(grad * (f_new - f), 0) > 0  # (B,)
-            y_new = jnp.where(restart[None], f_new, y_new)
-            t_new = jnp.where(restart, jnp.ones_like(t_new), t_new)
-            return (f_new, y_new, t_new)
+    def body(_, carry):
+        f, y, t = carry
+        grad = apply_A(y) + b
+        f_new = project(y - step[None] * grad)
+        t_new = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * t * t))
+        y_new = f_new + ((t - 1.0) / t_new)[None] * (f_new - f)
+        restart = usum(grad * (f_new - f), 0) > 0  # (B,)
+        y_new = jnp.where(restart[None], f_new, y_new)
+        t_new = jnp.where(restart, jnp.ones_like(t_new), t_new)
+        return (f_new, y_new, t_new)
 
-        t0 = jnp.ones(b.shape[-1], dtype)
-        f, _, _ = jax.lax.fori_loop(0, iterations, body, (f0, f0, t0))
-        return f * inv_s, cw_v_out  # un-scale: g -> f
-
-    if in_pallas:
-        import jax.experimental.pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        def _scoped(J_ref):
-            J_ref[:] = J
-            return core(lambda: J_ref[:])
-
-        return pl.run_scoped(_scoped, pltpu.VMEM(J.shape, dtype))
-    return core(lambda: J)
+    t0 = jnp.ones(b.shape[-1], dtype)
+    f, _, _ = jax.lax.fori_loop(0, iterations, body, (f0, f0, t0))
+    return f * inv_s, cw_v_out  # un-scale: g -> f
 
 
 def implicit_damping_np(m: PhysicsModel) -> np.ndarray:
@@ -782,7 +751,6 @@ def step_l(
     solver_iterations: int | None = None,
     lipschitz: str = "cw",
     cw_v: jnp.ndarray | None = None,  # (nefc, B) carried CW probe
-    in_pallas: bool = False,  # inside a Mosaic kernel: pin J in VMEM scratch
 ) -> LaneStepOut:
     """One mj_step, batch-last — semantics of step.step_with_forward with
     exact per-step inverses (cold path)."""
@@ -814,8 +782,7 @@ def step_l(
 
     # sensors BEFORE the solver: they only need kinematics + (qpos, qvel), and
     # evaluating them here ends the live ranges of the per-body/geom frames
-    # before the APGD loop — the VMEM stack peak is the binding constraint on
-    # this kernel (measured 27 MB/tile at leap sizes)
+    # before the APGD loop
     sens = evaluate_sensors_l(m, kin, qpos, qvel)
 
     if nefc > 0:
@@ -835,7 +802,6 @@ def step_l(
         f, cw_v_out = solve_dual_qp_l(
             J, minv, reg, b, iters, f_warm, lipschitz,
             ncon_start=num_noncontact_rows(m), mus=mus, diag=diag, cw_v=cw_v,
-            in_pallas=in_pallas,
         )
         qacc = qacc_smooth + minv_mv(jt_vec_chunked(J, f))
     else:

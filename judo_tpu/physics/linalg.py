@@ -1,20 +1,19 @@
-"""Small-matrix batched linear algebra tuned for TPU.
+"""Small-matrix batched linear algebra for the per-step mass matrices.
 
-Two generations of tuning, both measured on v5e:
+Two generations of design:
 
 1. XLA's native Cholesky/triangular-solve lower to blocked while-loops sized
-   for 128x128 tiles — catastrophic for the nv x nv (nv ~ 4-25) mass matrices
-   this engine factors per physics step (~25 ms/step at batch 320).
+   for large tiles — a poor fit for the nv x nv (nv ~ 4-25) mass matrices
+   this engine factors per physics step.
 2. The first replacement *unrolled the factorization over columns with
-   ``.at[...].set`` updates* — but a single gather/scatter op inside a scan
-   costs ~36 us on v5e (vs ~0.05 us for a fused elementwise op, measured in
-   scratch/micro_overhead.py) and blows up XLA compile time; ~10 scatters per
-   column x 2 factorizations dominated the whole step.
+   ``.at[...].set`` updates* — but gather/scatter ops inside a scan are slow
+   next to fused elementwise ops and blow up XLA compile time; ~10 scatters
+   per column x 2 factorizations dominated the whole step.
 
 The current formulation is **scatter/gather-free**: every per-column update
 is expressed with static slices, constant one-hot masks, and full-matrix
-elementwise/outer-product ops — each column costs a couple of fused VPU ops
-across the whole rollout batch, nothing else.
+elementwise/outer-product ops — each column costs a couple of fused
+elementwise ops across the whole rollout batch, nothing else.
 """
 
 from __future__ import annotations
@@ -58,10 +57,10 @@ def spd_inverse(m: jnp.ndarray) -> jnp.ndarray:
     accumulator are updated with one fused rank-1 op each. No pivoting —
     SPD diagonals stay strictly positive through elimination.
 
-    Materializing M^-1 (n ~ 4-25) and applying it with matmuls is far cheaper
-    on TPU than running substitutions against wide right-hand sides (e.g. the
+    Materializing M^-1 (n ~ 4-25) and applying it with matmuls is cheaper
+    than running substitutions against wide right-hand sides (e.g. the
     (nv, nefc~300) contact-Jacobian transpose): the substitutions cost O(n)
-    sequential ops *per use*, the matmul is a single MXU-friendly op.
+    sequential ops *per use*, the matmul is a single op.
     """
     n = m.shape[-1]
     dtype = m.dtype

@@ -65,9 +65,8 @@ def evaluate_sensors(
     """Flat (nsensordata,) vector matching MuJoCo's sensordata layout.
 
     Assembled as per-sensor segments concatenated in address order (the
-    sensordata layout is static), never via indexed writes — ``.at[]``
-    updates inside the rollout scan are ~3 orders of magnitude slower than
-    fused elementwise ops on v5e (scratch/micro_overhead.py)."""
+    sensordata layout is static), never via ``.at[]`` indexed writes inside
+    the rollout scan."""
     dtype = kin.xpos.dtype
     segs: list[jnp.ndarray] = []
     cursor = 0

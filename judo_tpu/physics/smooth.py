@@ -9,10 +9,9 @@ Tree loops run over bodies at *trace* time (nbody is tens at most), so the
 compiled program is a flat fused graph with no dynamic control flow — the
 XLA-friendly formulation.
 
-**No gathers or scatters anywhere in the hot path.** Measured on v5e
-(scratch/micro_overhead.py): one gather+scatter pair inside a scan costs
-~36 us vs ~0.05 us for a fused elementwise op, and scatters blow up XLA
-compile time by orders of magnitude. Every indexed read of a *computed*
+**No gathers or scatters anywhere in the hot path.** Gathers and scatters
+inside a scan are slow next to fused elementwise ops, and scatters blow up
+XLA compile time by orders of magnitude. Every indexed read of a *computed*
 tensor is therefore expressed as a constant one-hot matmul (selection
 matrices built in numpy at trace time), every indexed write as a stack /
 concatenate over a static layout, and tree accumulations as mask matmuls.
@@ -174,7 +173,7 @@ def com_quantities(m: PhysicsModel, kin: Kinematics) -> ComQuants:
     All spatial quantities are expressed with world orientation about the
     subtree CoM of each kinematic tree's root body. Tree accumulations are
     mask matmuls; the (nv, 6) dof-axis matrix is built as one stack over the
-    static dof layout — per-row scatter writes cost ~36 us each on v5e.
+    static dof layout instead of per-row scatter writes.
     """
     dtype = kin.xpos.dtype
     mass = m.body_mass

@@ -22,14 +22,14 @@ Either way the dual cone-projected QP
 is solved with fixed-iteration accelerated projected gradient descent (APGD);
 the SOC projection per elliptic triplet costs a handful of elementwise ops.
 Unlike sequential Gauss-Seidel sweeps, every APGD iteration is a dense
-matvec — the formulation that vectorizes across the rollout batch on TPU.
-Elliptic is also the cheaper formulation on TPU: 3 rows/contact instead of 4
+matvec — the formulation that vectorizes across the rollout batch.
+Elliptic is also the cheaper formulation: 3 rows/contact instead of 4
 (25% less APGD matvec work on the leap scene).
 
 Assembly is fully vectorized over the (static-size) contact set: the per-row
 Jacobians, impedances and regularizers are computed as batched tensor ops, so
 the HLO graph size is independent of the number of contacts — which keeps
-both compile time and TPU sequential-op overhead flat as scenes grow
+both compile time and sequential-op overhead flat as scenes grow
 (leap_cube has ~70 contact slots; a per-contact Python loop was ~10x the ops).
 """
 
@@ -119,7 +119,7 @@ def assemble_constraints(
 
     # --- joint equality couplings (mjEQ_JOINT), as +/- one-sided row pairs ---
     # rows are built from constant one-hot basis vectors scaled by computed
-    # scalars — never with .at[] scatter writes (36 us each on v5e)
+    # scalars — never with .at[] scatter writes inside the scan
     for e in range(m.neq):
         if m.eq_type[e] != EQ_JOINT:
             continue  # connect/weld equalities: not yet supported
@@ -192,7 +192,7 @@ def assemble_constraints(
         root2 = np.asarray([m.body_rootid[b] for b in b2], np.int32)
 
         # root-CoM reads on the computed subtree_com: one-hot const matmuls
-        # (index-array gathers cost ~36 us/op on v5e inside the scan)
+        # (instead of index-array gathers inside the scan)
         def _sel(rows: np.ndarray) -> jnp.ndarray:
             s = np.zeros((len(rows), m.nbody))
             s[np.arange(len(rows)), rows] = 1.0
@@ -246,8 +246,8 @@ def assemble_constraints(
             blocks_diag.append(diag_approx[:, None].repeat(4, 1).reshape(-1))
         else:
             # elliptic rows in GROUPED layout: [all normals | all t1 | all t2]
-            # (contiguous blocks make the SOC projection static slices — this
-            # matters inside the Pallas lanes kernel; see lane_step.py).
+            # (contiguous blocks make the SOC projection static slices; the
+            # lanes solver in lane_step.py uses the same layout).
             # Friction rows carry pos=0 / K=0 (aref = -B*vel) and R divided by
             # impratio; all three share the normal row's impedance (verified
             # against CPU MuJoCo efc_* arrays, see module docstring).
@@ -347,7 +347,7 @@ def solve_dual_qp_matfree(
     Matrix-free: the dual operator is applied as two (nefc, nv) matvecs
     instead of materializing the (nefc, nefc) Delassus matrix — for
     contact-rich scenes (nefc ~ 300, nv ~ 25) this cuts FLOPs and HBM
-    traffic by ~nefc/(2 nv), which dominates the rollout cost on TPU.
+    traffic by ~nefc/(2 nv).
     The Lipschitz constant comes from a short power iteration.
     """
     dtype = J.dtype
@@ -485,7 +485,7 @@ def solve_contacts(
 
     ``minv`` is the explicit inverse mass matrix (see linalg.cho_inverse).
     ``f_warm`` warm-starts the dual iteration from the previous physics step's
-    constraint forces (carried through the rollout scan) — the TPU-native
+    constraint forces (carried through the rollout scan) — the batched
     stand-in for MuJoCo's per-MjData warm-start (efc_force persistence), which
     lets the fixed APGD iteration count stay small.
 

@@ -1,6 +1,6 @@
 """Forward dynamics + integration: the jitted step and rollout entry points.
 
-step() is the TPU-native equivalent of one ``mj_step``; rollout() is the
+step() is the batched-engine equivalent of one ``mj_step``; rollout() is the
 equivalent of the reference's threaded batch rollout
 (judo/utils/mj_rollout_backend.py:84: R threads x T steps each) expressed as
 ``vmap(scan(step))`` — the batch dimension maps onto vector lanes / the device
@@ -37,9 +37,9 @@ def _ns_refresh(a: jnp.ndarray, x: jnp.ndarray, iters: int = 3) -> jnp.ndarray:
     previous physics step's exact inverse and A drifting by O(h) per step
     (the mass matrix depends only on qpos), three iterations restore the
     inverse to machine precision. This replaces the per-step sequential
-    Gauss-Jordan elimination (nv dependent rank-1 columns, ~600 us/step at
-    batch 320 on v5e) with 6 batched MXU matmuls — the TPU-native
-    formulation of MuJoCo's per-MjData factorization reuse.
+    Gauss-Jordan elimination (nv dependent rank-1 columns) with 6 batched
+    matmuls — the batched formulation of MuJoCo's per-MjData factorization
+    reuse.
 
     Divergence guard: NS diverges explosively (residual^(2^iters)) when the
     seed's residual ||I - A X|| reaches 1 — possible after an impact-scale
@@ -93,7 +93,7 @@ def forward(
 
     # One explicit inverse serves both the smooth acceleration and the contact
     # solver's Delassus operator (see linalg.py for why substitutions/scatters
-    # are the wrong TPU formulation). Inside a rollout the inverse is carried
+    # are avoided). Inside a rollout the inverse is carried
     # across steps and Newton-Schulz-refreshed; cold calls eliminate exactly.
     if minv_warm is None:
         minv = linalg.spd_inverse(mm)
@@ -121,8 +121,8 @@ def _integrate_pos(m: PhysicsModel, qpos: jnp.ndarray, qvel: jnp.ndarray, h) -> 
     """mj_integratePos semantics: joint-type-aware position update.
 
     Scatter-free: qpos is contiguous per joint in a static layout, so the new
-    vector is assembled from per-joint static slices and one concatenate —
-    indexed ``.at[].set`` updates cost ~36 us each inside a scan on v5e.
+    vector is assembled from per-joint static slices and one concatenate
+    instead of indexed ``.at[].set`` updates inside the scan.
     """
     segs: list[jnp.ndarray] = []
     cursor = 0
@@ -228,9 +228,9 @@ class RolloutOutput(NamedTuple):
 
 
 def default_unroll(m: PhysicsModel) -> int:
-    """Scan-unroll heuristic: unrolling amortizes TPU per-op scheduling
-    overhead (~20% on small scenes) but multiplies graph size, which is
-    expensive through the remote compiler — contact-rich scenes stay at 1."""
+    """Scan-unroll heuristic: unrolling amortizes per-step loop overhead on
+    small scenes but multiplies graph size and compile time — contact-rich
+    scenes stay at 1."""
     from judo_tpu.physics.collision import num_contact_slots
 
     return 5 if num_contact_slots(m) <= 16 else 1

@@ -1,15 +1,14 @@
 """Self-hosted simulation backend: the JAX engine as the plant.
 
 Runs one environment through judo_tpu.physics.step — useful for fully
-device-resident experiments and for CI environments without a MuJoCo build.
-State is mirrored back into the task's MjData so task hooks (post_sim_step
-goal logic etc.) keep working unchanged.
+device-resident experiments and for machines without MuJoCo (exported task
+models, tasks/exported.py). State is mirrored back into the task's host data
+so task hooks (post_sim_step goal logic etc.) keep working unchanged.
 """
 
 from __future__ import annotations
 
 import jax
-import mujoco
 import numpy as np
 
 from judo_tpu.app.structs import MujocoState
@@ -25,10 +24,12 @@ class JTSimulation(Simulation):
 
     def _bind_task(self) -> None:
         self.pm = self.task.planning_model
-        self._step = jax.jit(lambda s, c: step(self.pm, s, c))
         self._state = make_state(
             self.pm, qpos=self.task.data.qpos, qvel=self.task.data.qvel, time=self.task.data.time
         )
+        # compile now, not on the first paced tick
+        ctrl0 = np.zeros(self.pm.nu, self.pm.qpos0.dtype)
+        self._step = jax.jit(lambda s, c: step(self.pm, s, c)).lower(self._state, ctrl0).compile()
 
     def set_task_instance(self, task: Task) -> None:
         super().set_task_instance(task)
@@ -41,13 +42,13 @@ class JTSimulation(Simulation):
         # re-sync if the task reset its MjData behind our back
         if not np.allclose(d.qpos, np.asarray(self._state.qpos), atol=1e-12):
             self._state = make_state(self.pm, qpos=d.qpos, qvel=d.qvel, time=d.time)
-        ctrl = np.asarray(self.task.task_to_sim_ctrl(command))
+        ctrl = np.asarray(self.task.task_to_sim_ctrl(command), self.pm.qpos0.dtype)
         self.task.pre_sim_step()
         self._state = self._step(self._state, ctrl)
         d.qpos[:] = np.asarray(self._state.qpos)
         d.qvel[:] = np.asarray(self._state.qvel)
         d.time = float(self._state.time)
-        mujoco.mj_forward(self.task.model, d)  # refresh kinematics for viz/hooks
+        self.task.forward()  # refresh kinematics for viz/hooks
         self.task.post_sim_step()
 
     @property

@@ -1,14 +1,15 @@
 """CPU-MuJoCo simulation backend (reference: judo/simulation/mj_simulation.py).
 
 The real-time "plant" runs one environment at wall-clock rate — a host-side
-job, so it stays on CPU MuJoCo while all planning rollouts run on the TPU
-(the reference's dual model/sim_model fidelity split, judo/tasks/base.py:40,
-generalizes here to an engine split).
+job, so it stays on CPU MuJoCo while all planning rollouts run on the
+accelerator (the reference's dual model/sim_model fidelity split,
+judo/tasks/base.py:40, generalizes here to an engine split). Needs ``mujoco``;
+where it is not installed, the ``judo_tpu`` backend (jt_simulation.py) steps
+the JAX engine instead.
 """
 
 from __future__ import annotations
 
-import mujoco
 import numpy as np
 
 from judo_tpu.app.structs import MujocoState
@@ -41,6 +42,8 @@ class MJSimulation(Simulation):
                 f"nu={self.model.nu}; policy tasks need the 'mujoco_policy' backend"
             )
         self.data.ctrl[:] = ctrl
+        import mujoco
+
         self.task.pre_sim_step()
         mujoco.mj_step(self.model, self.data)
         self.task.post_sim_step()

@@ -1,10 +1,12 @@
 """Task base: host-side model ownership + pure device reward functions.
 
 API parity with judo/tasks/base.py:24-204 (nu, dt, actuator_ctrlrange, reset,
-pre/post hooks, sim metadata, index helpers), with the TPU-build split:
+pre/post hooks, sim metadata, index helpers), split in two:
 
 - the *host* side compiles MJCF via MuJoCo and owns MjData for the "real"
-  simulation process (judo's dual model/sim_model split, base.py:40);
+  simulation process (judo's dual model/sim_model split, base.py:40). Where
+  MuJoCo is not installed, the benchmark tasks load their lowered model from
+  the package instead (tasks/exported.py) and have no host simulation;
 - the *device* side gets a lowered ``PhysicsModel`` for planning rollouts and
   a pure ``reward`` function of (states, sensors, controls, params, metadata)
   that jits and vmaps — config values flow in through the ``params`` pytree
@@ -19,11 +21,14 @@ from pathlib import Path
 from typing import Any, Generic, TypeVar
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
-from mujoco import MjData, MjModel, MjSpec
 
 from judo_tpu.physics import PhysicsModel, put_model
+
+try:
+    import mujoco
+except ModuleNotFoundError:  # planner-only install: see tasks/exported.py
+    mujoco = None
 
 
 @dataclass
@@ -59,7 +64,7 @@ class Task(Generic[ConfigT]):
     name: str
     config_t: type[ConfigT]
     # contact-solver iterations for the *planning* model: planners trade
-    # solver tightness for TPU sequential depth (the sim side uses the model's
+    # solver tightness for sequential depth (the sim side uses the model's
     # own opt.iterations)
     planning_solver_iterations: int = 25
     # optional planner-side collision pruning: None keeps every MuJoCo pair
@@ -74,14 +79,39 @@ class Task(Generic[ConfigT]):
         if not model_path:
             raise ValueError("Model path must be provided.")
         self.config = self.config_t()
-        self.spec = MjSpec.from_file(str(model_path))
-        self._process_spec()
-        self.model = self.spec.compile()
-        self.data = MjData(self.model)
         self.model_path = model_path
-        self.sim_model = self.model if sim_model_path is None else MjModel.from_xml_path(str(sim_model_path))
         self._planning_dtype = planning_dtype
         self._planning_model: PhysicsModel | None = None
+        if mujoco is None:
+            self._load_exported()
+            return
+        self.spec = mujoco.MjSpec.from_file(str(model_path))
+        self._process_spec()
+        self.model = self.spec.compile()
+        self.data = mujoco.MjData(self.model)
+        self.sim_model = (
+            self.model if sim_model_path is None else mujoco.MjModel.from_xml_path(str(sim_model_path))
+        )
+
+    def _load_exported(self) -> None:
+        """Host model/data stand-ins and the planning model from the
+        package's exported file for this task (no MJCF compile)."""
+        from judo_tpu.tasks.exported import load_task
+
+        exported = load_task(self.name)
+        pm = exported.planning_model
+        if pm.qpos0.dtype != np.dtype(self._planning_dtype) or (
+            pm.solver_iterations != self.planning_solver_iterations
+        ):
+            raise ValueError(
+                f"exported model of '{self.name}' was lowered at {pm.qpos0.dtype} with "
+                f"{pm.solver_iterations} solver iterations; regenerate it "
+                "(python -m judo_tpu.tasks.exported)"
+            )
+        self.spec = None
+        self.model = self.sim_model = exported.model
+        self.data = exported.data
+        self._planning_model = pm
 
     @property
     def planning_model(self) -> PhysicsModel:
@@ -139,11 +169,18 @@ class Task(Generic[ConfigT]):
         limits[~limited] = np.array([-np.inf, np.inf])
         return limits
 
+    def forward(self) -> None:
+        """Recompute the host data's derived quantities (``mj_forward``).
+        An exported model has no host kinematics: its body poses keep their
+        exported values."""
+        if mujoco is not None:
+            mujoco.mj_forward(self.model, self.data)
+
     def reset(self) -> None:
         """Reset host sim state (default: zeros)."""
         self.data.qpos = np.zeros_like(self.data.qpos)
         self.data.qvel = np.zeros_like(self.data.qvel)
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()
 
     # --- device-side pure functions ---
     def task_params(self, dtype=jnp.float32) -> dict[str, Any]:

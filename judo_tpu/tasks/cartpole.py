@@ -6,7 +6,6 @@ from dataclasses import dataclass
 from typing import Any
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from judo_tpu import MODEL_PATH
@@ -60,4 +59,4 @@ class Cartpole(Task[CartpoleConfig]):
         """Random reset around [1, pi] (cartpole.py:80-84)."""
         self.data.qpos = np.array([1.0, np.pi]) + np.random.randn(2)
         self.data.qvel = 1e-1 * np.random.randn(2)
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()

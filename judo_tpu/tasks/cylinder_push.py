@@ -6,7 +6,6 @@ from dataclasses import dataclass
 from typing import Any
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from judo_tpu import MODEL_PATH
@@ -81,4 +80,4 @@ class CylinderPush(Task[CylinderPushConfig]):
             [np.cos(theta[0]), np.sin(theta[0]), 2 * np.cos(theta[1]), 2 * np.sin(theta[1])]
         )
         self.data.qvel = np.zeros(4)
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()

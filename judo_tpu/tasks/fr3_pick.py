@@ -14,7 +14,6 @@ from enum import Enum
 from typing import Any
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from judo_tpu.gui import slider
@@ -207,4 +206,4 @@ class FR3Pick(Task[FR3PickConfig]):
         self.data.qpos[:] = QPOS_HOME
         self.data.qvel[:] = 0.0
         self.data.ctrl[:] = self.reset_command
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()

@@ -6,7 +6,6 @@ from dataclasses import dataclass
 from typing import Any
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from judo_tpu.gui import slider
@@ -114,7 +113,7 @@ class LeapCube(Task[LeapCubeConfig]):
         self.data.qvel[:] = 0.0
         self.data.ctrl[:] = self.reset_command
         self._update_goal_quat()
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()
 
     def get_sim_metadata(self) -> dict[str, Any]:
         return {"goal_quat": self.goal_quat}

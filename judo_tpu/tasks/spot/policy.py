@@ -15,8 +15,8 @@ Re-expresses the reference's C++ policy-in-the-loop rollout
   policy over 100 Hz physics), policy output carried across steps.
 
 The wall-clock cutoff watchdog (system_class.cpp:292-327) has no equivalent:
-TPU rollout time is deterministic, so the budget holds by construction
-(SURVEY §2.4 TPU-equivalents note).
+every rollout has a fixed horizon and fixed iteration counts, so the batch
+finishes together and none is cut short (SURVEY §2.4).
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ class SpotPolicy(NamedTuple):
 
     The joint-order permutations are carried as constant permutation
     MATRICES, not gather indices: a permutation applied as a matmul fuses
-    into the surrounding graph, while an index-array gather inside the
-    rollout scan costs ~36 us on v5e (scratch/micro_overhead.py)."""
+    into the surrounding graph, where an index-array gather inside the
+    rollout scan would not."""
 
     mlp: MLPPolicy
     default_joint_pos: jnp.ndarray  # (19,)
@@ -157,7 +157,7 @@ def policy_rollout(
     physics_substeps: int = 2,
     reseed_every: int = 10,
 ) -> PolicyRolloutOutput:
-    """The TPU equivalent of System::rollout / threadedRollout: scan over
+    """The batched equivalent of System::rollout / threadedRollout: scan over
     commands with the policy in the loop; vmap for the candidate batch.
 
     Like physics.step.rollout, the Newton-Schulz inverse chain is re-seeded

@@ -1,18 +1,16 @@
 """Spot locomotion policy in the loop, LANES formulation.
 
-The batch-last counterpart of policy.py for the fused TPU kernel path: the
-84-dim observation builder, the locomotion MLP, and the ctrl mapping all
-operate on (..., B) columns, so one policy tick for a whole 128-lane tile is
-a handful of wide VPU ops plus four MXU matmuls ((512,85)@(85,B) etc.) —
-versus the reference's per-candidate ONNX-runtime threads
+The batch-last counterpart of policy.py for the lanes rollout: the 84-dim
+observation builder, the locomotion MLP, and the ctrl mapping all operate on
+(..., B) columns, so one policy tick for the whole batch is a handful of wide
+elementwise ops plus four matmuls ((512,85)@(85,B) etc.) — versus the
+reference's per-candidate ONNX-runtime threads
 (mujoco_extensions/system/system_class.cpp:125-331) and the vmap path's
 per-candidate MLP calls.
 
-Pallas constraints shape the API: kernels cannot capture array constants, so
-the MLP weights enter as explicit tensors (``lanes_weight_tensors`` builds
-bias-augmented [W^T | b] blocks that the fused kernel streams in as inputs),
-the joint-order permutations are rebuilt from iota comparisons (host index
-constants), and small constant vectors use jnp.full-based columns
+The MLP weights enter as bias-augmented [W^T | b] blocks
+(``lanes_weight_tensors``), the joint-order permutations are rebuilt from
+iota comparisons, and small constant vectors use jnp.full-based columns
 (lane_engine.const_col).
 
 Semantics are identical to policy.py (parity-tested:
@@ -36,21 +34,10 @@ from judo_tpu.tasks.spot import spot_constants as sc
 from judo_tpu.tasks.spot.policy import SpotPolicy
 from judo_tpu.utils.onnx_loader import _ACTIVATIONS
 
-# Mosaic-safe activations: jax.nn.elu lowers via expm1, which Pallas TPU
-# does not implement — use the plain exp form inside kernels (identical to
-# float rounding at ELU's scale)
-_PALLAS_ACTIVATIONS = {
-    "Elu": lambda x: jnp.where(x > 0, x, jnp.exp(jnp.minimum(x, 0.0)) - 1.0),
-    "Relu": lambda x: jnp.maximum(x, 0.0),
-    "Tanh": jnp.tanh,
-}
-
-
 class SpotPolicyLanes(NamedTuple):
     """Lanes-side policy parameters.
 
-    ``waugs``: per-layer bias-augmented (out, in+1) tensors [W^T | b] —
-    device arrays on the XLA path, VMEM ref views inside the Pallas kernel.
+    ``waugs``: per-layer bias-augmented (out, in+1) tensors [W^T | b].
     ``acts``: static activation names (never flattened through jit)."""
 
     waugs: tuple
@@ -58,7 +45,7 @@ class SpotPolicyLanes(NamedTuple):
 
 
 def lanes_weight_tensors(policy: SpotPolicy, dtype=np.float32) -> list:
-    """Host-side [W^T | b] blocks for the fused kernel's weight inputs."""
+    """Host-side [W^T | b] blocks, one per MLP layer."""
     out = []
     for w, b in policy.mlp.weights:
         wt = np.asarray(jax.device_get(w), np.float64).T  # (out, in)
@@ -68,7 +55,7 @@ def lanes_weight_tensors(policy: SpotPolicy, dtype=np.float32) -> list:
 
 
 def lanes_policy_params(policy: SpotPolicy, dtype=jnp.float32) -> SpotPolicyLanes:
-    """XLA-path params (plain jit may close over device arrays)."""
+    """Lanes policy params as device arrays of ``dtype``."""
     return SpotPolicyLanes(
         waugs=tuple(jnp.asarray(w, dtype) for w in lanes_weight_tensors(policy)),
         acts=tuple(policy.mlp.activations),
@@ -76,19 +63,19 @@ def lanes_policy_params(policy: SpotPolicy, dtype=jnp.float32) -> SpotPolicyLane
 
 
 def mlp_aug_l(lp: SpotPolicyLanes, x: jnp.ndarray) -> jnp.ndarray:
-    """MLP on (in_dim, B) columns with bias-augmented weights (MXU matmuls)."""
+    """MLP on (in_dim, B) columns with bias-augmented weights."""
     B = x.shape[-1]
     for wa, act in zip(lp.waugs, lp.acts):
         xa = jnp.concatenate([x, jnp.ones((1, B), x.dtype)], axis=0)
         x = jnp.dot(wa.astype(x.dtype), xa, preferred_element_type=x.dtype)
         if act:
-            x = _PALLAS_ACTIVATIONS.get(act, _ACTIVATIONS[act])(x)
+            x = _ACTIVATIONS[act](x)
     return x
 
 
 def _perm_matrix(indices, dtype) -> jnp.ndarray:
     """(n, n) permutation P[i, j] = [j == indices[i]] from iota comparisons
-    (pallas-safe constant — no literal arrays)."""
+    (no literal-array constants)."""
     n = len(indices)
     io = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1).astype(dtype)
     idx = const_col([float(i) for i in indices], dtype)  # (n, 1)
@@ -173,7 +160,6 @@ def spot_policy_step_l(
     f_warm: jnp.ndarray | None = None,
     cw_v: jnp.ndarray | None = None,
     solver_iterations: int | None = None,
-    in_pallas: bool = False,
 ) -> PolicyLaneStepOut:
     """One 50 Hz policy tick in lanes: obs -> MLP -> ctrl -> substeps x step_l
     (policy.spot_policy_step, batch-last)."""
@@ -184,7 +170,7 @@ def spot_policy_step_l(
     for _ in range(physics_substeps):
         out = step_l(
             m, qpos, qvel, ctrl, f_warm,
-            solver_iterations=solver_iterations, cw_v=cw_v, in_pallas=in_pallas,
+            solver_iterations=solver_iterations, cw_v=cw_v,
         )
         qpos, qvel, f_warm, cw_v = out.qpos, out.qvel, out.efc_force, out.cw_v
     return PolicyLaneStepOut(

@@ -13,7 +13,6 @@ from dataclasses import dataclass
 from typing import Any, Generic, TypeVar
 
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 
 from judo_tpu.models.spot import spot_xml_path
@@ -203,7 +202,7 @@ class SpotBase(Task[ConfigT], Generic[ConfigT]):
     def reset(self) -> None:
         self.data.qpos[:] = self.reset_pose
         self.data.qvel[:] = 0.0
-        mujoco.mj_forward(self.model, self.data)
+        self.forward()
 
     def get_action_components(self) -> list[str]:
         """Names per action dim (spot_base.py:445-459)."""

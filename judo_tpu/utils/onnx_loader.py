@@ -4,7 +4,7 @@ The reference runs the Spot locomotion policy with ONNX Runtime inside C++
 threads (mujoco_extensions/onnx_interface). Here the network is extracted
 once by the native parser (native/onnx_extract.cpp, built with `make -C
 native`) and re-expressed as a pure-JAX MLP that jits straight into the
-rollout — per SURVEY §2.4's TPU-equivalents mapping.
+rollout — per SURVEY §2.4's equivalents mapping.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Profiling hooks (SURVEY §5.1 TPU-build addition).
+"""Profiling hooks (SURVEY §5.1; an addition over the reference).
 
 The reference has plan-time telemetry only (perf_counter around
 update_action, judo/app/dora/controller.py:138-142). Here:

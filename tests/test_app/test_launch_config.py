@@ -84,3 +84,14 @@ def test_registered_overrides_reapply_on_gui_task_switch():
     finally:
         for cls, vals in saved.items():
             _OVERRIDE_REGISTRY[cls]["cylinder_push"] = vals
+
+
+def test_cli_platform_accepts_gpu_and_refuses_tpu():
+    import pytest
+
+    from judo_tpu.cli import build_parser
+
+    args = build_parser().parse_args(["--platform", "gpu", "run", "--task", "leap_cube"])
+    assert args.platform == "gpu"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--platform", "tpu", "run"])

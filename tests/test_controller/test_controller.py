@@ -115,7 +115,7 @@ def test_solver_respecializes_on_shape_change():
 
 def test_horizon_bucketed_compile_cache():
     """A horizon slider drag triggers <= 1 build per 4-step bucket, and
-    returning to a visited horizon reuses the cached solve (VERDICT r2 #7)."""
+    returning to a visited horizon reuses the cached solve."""
     np.random.seed(0)
     c = make_controller("cartpole", "ps")
     builds = 0

@@ -1,5 +1,4 @@
-"""Closed-loop task success is preserved under pipelined planning (VERDICT r4
-item 5): with ``pipeline_depth > 0`` the published spline lags ``depth``
+"""Closed-loop task success is preserved under pipelined planning: with ``pipeline_depth > 0`` the published spline lags ``depth``
 solves — this test pins that the staleness does not break the MPC loop.
 
 Mirrors the reference's plan-freshness semantics (the reference keeps

@@ -1,10 +1,10 @@
-"""Parity of the batch-in-lanes engine (lane_engine/lane_step/pallas_step)
+"""Parity of the batch-in-lanes engine (lane_engine/lane_step/lane_rollout)
 against the vmap(step.rollout) formulation.
 
-The lanes step is the TPU production path (one fused Pallas kernel per physics
-step); its numerics must match the reference formulation that is itself
+The lanes rollout is one of the controller's two rollout backends; its
+numerics must match the reference formulation that is itself
 MuJoCo-trajectory-parity-tested (test_parity.py). Small inline scenes keep CPU
-compile times in check; the leap-scale check runs in scratch/ and on TPU.
+compile times in check.
 
 Replaces-semantics reference: judo/utils/mj_rollout_backend.py:84 (the rollout
 loop both formulations implement).
@@ -16,7 +16,7 @@ import mujoco
 import numpy as np
 
 from judo_tpu.physics import make_state, put_model, rollout
-from judo_tpu.physics.pallas_step import rollout_lanes
+from judo_tpu.physics.lane_rollout import rollout_lanes
 
 from .test_parity import CARTPOLE, SPHERE_PLANE
 
@@ -43,7 +43,7 @@ def test_lanes_xla_matches_vmap_cartpole():
     qp, qv, ct = _batch(mj, R=4, T=40, rng=rng, qpos0=[0.2, 2.9])
 
     ref_states, ref_sens = _vmap_reference(pm, qp, qv, ct)
-    lane = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, backend="xla"))(qp, qv, ct)
+    lane = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c))(qp, qv, ct)
 
     np.testing.assert_allclose(np.asarray(lane.states), np.asarray(ref_states), atol=1e-9)
     np.testing.assert_allclose(np.asarray(lane.sensordata), np.asarray(ref_sens), atol=1e-9)
@@ -61,25 +61,10 @@ def test_lanes_xla_matches_vmap_contacts():
     qp, qv, ct = _batch(mj, R=4, T=60, rng=rng, qpos0=[0, 0, 0.25, 1, 0, 0, 0], qvel_scale=0.4)
 
     ref_states, _ = _vmap_reference(pm, qp, qv, ct)
-    lane = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, backend="xla"))(qp, qv, ct)
+    lane = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c))(qp, qv, ct)
 
     assert bool(jnp.all(jnp.isfinite(lane.states)))
     np.testing.assert_allclose(np.asarray(lane.states), np.asarray(ref_states), atol=1e-5)
-
-
-def test_lanes_pallas_interpret_matches_xla():
-    """The Pallas kernel plumbing (BlockSpecs, lane tiling, padding) via the
-    interpreter — same numerics as calling step_l under plain jit."""
-    mj = mujoco.MjModel.from_xml_string(CARTPOLE)
-    pm = put_model(mj, dtype=jnp.float64)
-    rng = np.random.default_rng(2)
-    qp, qv, ct = _batch(mj, R=3, T=5, rng=rng, qpos0=[0.1, 3.0])  # R=3 exercises pad
-
-    xla = rollout_lanes(pm, qp, qv, ct, backend="xla")
-    interp = rollout_lanes(pm, qp, qv, ct, backend="interpret")
-
-    np.testing.assert_allclose(np.asarray(interp.states), np.asarray(xla.states), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(interp.sensordata), np.asarray(xla.sensordata), atol=1e-12)
 
 
 def test_controller_lanes_backend_matches_vmap():
@@ -123,8 +108,8 @@ def test_lanes_power_lipschitz_matches_holder():
     rng = np.random.default_rng(5)
     qp, qv, ct = _batch(mj, R=4, T=60, rng=rng, qpos0=[0, 0, 0.25, 1, 0, 0, 0], qvel_scale=0.4)
 
-    hold = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, backend="xla"))(qp, qv, ct)
-    pwr = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, backend="xla", lipschitz="power"))(qp, qv, ct)
+    hold = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c))(qp, qv, ct)
+    pwr = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, lipschitz="power"))(qp, qv, ct)
 
     assert bool(jnp.all(jnp.isfinite(pwr.states)))
     np.testing.assert_allclose(np.asarray(pwr.states), np.asarray(hold.states), atol=2e-5)

@@ -1,8 +1,7 @@
 """Newton-Schulz temporal-warm-start chain: f32 drift, divergence guard,
 and the blocked exact re-seed (rollout's reseed_every).
 
-ADVICE r2: the f32 NS-vs-cold agreement was only checked by an uncommitted
-scratch script, and _ns_refresh had no divergence guard. These tests pin both:
+These tests pin the f32 NS-vs-cold agreement and the divergence guard:
 the carried-inverse rollout must track a cold (exact-inverse-every-step)
 rollout in float32 over a contact-rich horizon, and a divergent refresh must
 freeze (bounded) rather than explode.

@@ -1,16 +1,15 @@
 """Full-scene trajectory parity vs CPU MuJoCo on the FLAGSHIP task scenes.
 
-VERDICT r3 item 5: the engine's ground-truth tests covered only small inline
-scenes; these step the actual leap_cube.xml (elliptic cone, impratio=100) and
+These step the actual leap_cube.xml (elliptic cone, impratio=100) and
 fr3_pick.xml (pyramidal, jnt_actfrcrange-clamped arm) — the scenes the planner
 actually plans on — with contacts active, in float64, against mj_step.
 
 Ground truth: the reference's plant is mj_step on these models
-(judo/simulation/mj_simulation.py:33-46 in /root/reference).
+(judo/simulation/mj_simulation.py:33-46).
 
-Measured errors with the Jacobi-preconditioned CW-bounded APGD at stock model
-iterations (scratch r4): leap 0.0097 / fr3 0.0107 max |qpos| over 50 steps.
-Tolerances are ~3x those. Known model deltas (bounded, accepted): box-box
+Errors measured on the CPU at float64 with the Jacobi-preconditioned
+CW-bounded APGD at stock model iterations: leap 0.0097 / fr3 0.0107 max
+|qpos| over 50 steps. Tolerances are ~3x those. Known model deltas (bounded, accepted): box-box
 manifold points come from clamped incident-face vertices rather than true
 polygon clipping, and deep (>5 cm) capsule-box penetration recovers along a
 different face than MuJoCo's — both below the asserted bounds on these
@@ -19,36 +18,15 @@ trajectories.
 
 import jax
 import jax.numpy as jnp
-import mujoco
 import numpy as np
 import pytest
 
 from judo_tpu.physics import make_state, put_model, rollout
+from judo_tpu.tasks.exported import mj_step_trajectory
 
 
 def _mj_trajectory(task, T):
-    m = task.model
-    d = mujoco.MjData(m)
-    mujoco.mj_resetData(m, d)
-    warm = np.asarray(task.optimizer_warm_start())
-    if warm.shape[0] != m.nu:  # Spot: task actions are 25-dim commands, the
-        warm = d.qpos[7 : 7 + m.nu].copy()  # plant ctrl is 19 joint targets
-        amp = 0.02
-    else:
-        amp = 0.05
-    rng = np.random.default_rng(3)
-    ctrl = warm[None] + amp * np.sin(np.linspace(0, 3, T))[:, None] * rng.standard_normal(
-        (1, m.nu)
-    )
-    qpos0, qvel0 = d.qpos.copy(), d.qvel.copy()
-    states = []
-    ncon = 0
-    for k in range(T):
-        d.ctrl[:] = ctrl[k]
-        mujoco.mj_step(m, d)
-        ncon = max(ncon, d.ncon)
-        states.append(np.concatenate([d.qpos.copy(), d.qvel.copy()]))
-    return qpos0, qvel0, ctrl, np.asarray(states), ncon
+    return mj_step_trajectory(task, T)
 
 
 def _ours_trajectory(task, qpos0, qvel0, ctrl):
@@ -74,8 +52,8 @@ def test_flagship_scene_trajectory_parity(task_name, tol):
     ["spot_box_push", "spot_tire_roll", "spot_tire_upright"],
 )
 def test_spot_object_scene_trajectory_parity(task_name):
-    """VERDICT r4 item 6: the Spot object scenes (box-box and the
-    capsule-ring tire approximation) vs mj_step — bounds the box-box
+    """The Spot object scenes (box-box and the capsule-ring tire
+    approximation) vs mj_step — bounds the box-box
     manifold simplification on the contacts that matter. Measured 0.0189
     max |qpos| over 50 steps on all three scenes (r5, contacts active:
     box 8 / tire 6); tolerance ~2.5x that."""

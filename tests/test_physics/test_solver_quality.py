@@ -1,4 +1,4 @@
-"""Contact-solver accuracy regression test (VERDICT r3 item 6).
+"""Contact-solver accuracy regression test.
 
 Pins the APGD dual solver's accuracy on REAL mid-rollout leap_cube states
 against a 300-iteration reference — so a future "speed up by dropping
@@ -18,8 +18,8 @@ Regimes pinned (measured values in parens, scratch r4):
 - More iterations must only refine (CW is a valid upper bound, so APGD
   cannot diverge).
 
-Runs the lanes formulation (the kernel's exact numerics) under plain jit on
-CPU; the Pallas TPU kernel wraps the same step_l (pallas_step.py).
+Runs the lanes formulation (lane_step.step_l, as lane_rollout.py scans it)
+under jit on the CPU.
 """
 
 import jax
@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 
 from judo_tpu.physics.lane_step import step_l
-from judo_tpu.physics.pallas_step import rollout_lanes
+from judo_tpu.physics.lane_rollout import rollout_lanes
 from judo_tpu.tasks.leap_cube import LeapCube
 
 
@@ -45,7 +45,7 @@ def mid_rollout_state():
     ct = jnp.asarray(
         warm[None, None] + 0.05 * rng.standard_normal((B, 30, pm.nu)), jnp.float32
     )
-    out = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c, backend="xla"))(qp0, qv0, ct)
+    out = jax.jit(lambda a, b, c: rollout_lanes(pm, a, b, c))(qp0, qv0, ct)
     qp = out.states[:, -1, : pm.nq].T  # (nq, B)
     qv = out.states[:, -1, pm.nq :].T
     ctrl = ct[:, -1].T
@@ -93,7 +93,7 @@ def test_cold_start_bounded(mid_rollout_state):
 def test_cross_solve_efc_warm_carry(mid_rollout_state):
     """The rollout returns converged step-0 forces (efc0) and accepts them
     as the next solve's onset warm start (SolverState.efc_warm plumbing)."""
-    from judo_tpu.physics.pallas_step import rollout_lanes
+    from judo_tpu.physics.lane_rollout import rollout_lanes
 
     pm, qv, ref, step = mid_rollout_state
     task = LeapCube()
@@ -103,13 +103,13 @@ def test_cross_solve_efc_warm_carry(mid_rollout_state):
     qp0 = jnp.asarray(np.tile(task.data.qpos, (B, 1)), jnp.float32)
     qv0 = jnp.zeros((B, pm.nv), jnp.float32)
     ct = jnp.asarray(warm[None, None] + 0.05 * rng.standard_normal((B, 30, pm.nu)), jnp.float32)
-    out = rollout_lanes(pm, qp0, qv0, ct, backend="xla")
+    out = rollout_lanes(pm, qp0, qv0, ct)
     qp1 = out.states[:, -1, : pm.nq]
     qv1 = out.states[:, -1, pm.nq :]
-    out1 = rollout_lanes(pm, qp1, qv1, ct[:, :5], backend="xla")
+    out1 = rollout_lanes(pm, qp1, qv1, ct[:, :5])
     assert out1.efc0.shape == (B, out.efc0.shape[1])
     assert np.abs(np.asarray(out1.efc0)).max() > 1e-6, "grasp state must carry forces"
-    out2 = rollout_lanes(pm, qp1, qv1, ct[:, :5], backend="xla", efc_warm=out1.efc0)
+    out2 = rollout_lanes(pm, qp1, qv1, ct[:, :5], efc_warm=out1.efc0)
     assert np.isfinite(np.asarray(out2.states)).all()
 
     # step-level claim: warm-starting the ONSET solve from the carried efc0
@@ -128,8 +128,8 @@ def test_cross_solve_efc_warm_carry(mid_rollout_state):
     assert rel_warm < rel_cold, (rel_warm, rel_cold)
     # one carry hop reaches <0.1 (measured 0.057 vs cold 0.61 — the carried
     # forces are themselves a stock-budget solve, so successive control
-    # cycles refine toward the warm-tracking regime); VERDICT r4 item 4's
-    # "<0.1 at stock iterations" onset bound is met through this carry
+    # cycles refine toward the warm-tracking regime); the "<0.1 at stock
+    # iterations" onset bound is met through this carry
     assert rel_warm < 0.1, f"warm onset rel {rel_warm:.2e} (>= 0.1)"
 
 

@@ -2,7 +2,7 @@
 
 Covers the reference PolicyMJSimulation contract
 (judo/simulation/policy_mj_simulation.py:84-147, tests/test_simulation/
-test_simulation.py:40-58) plus the TPU-build-specific guarantee that the
+test_simulation.py:40-58) plus this build's guarantee that the
 host-side numpy policy path matches the jitted JAX planning stack exactly.
 """
 

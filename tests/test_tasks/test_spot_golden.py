@@ -5,8 +5,8 @@ The reference implementation is transcribed here INDEPENDENTLY in numpy —
 Eigen permutation semantics ((P x)[indices[i]] = x[i]) with the index vectors
 copied verbatim from initializeSystemIndices(), and mju_* quaternion math
 re-derived — so a transposed permutation or sign error in
-judo_tpu/tasks/spot/policy.py cannot cancel out (VERDICT r2 weak-point 6:
-both prior test sides were the builder's own code).
+judo_tpu/tasks/spot/policy.py cannot cancel out (both test sides would
+otherwise be this repository's own code).
 """
 
 import jax.numpy as jnp

@@ -1,8 +1,7 @@
 """SpotTireUpright reward parity vs a numpy transcription of the reference
 (judo/tasks/spot/spot_tire_upright.py:101-237 in /root/reference).
 
-VERDICT r3 noted the tire-upright reward was only shape/finiteness-tested;
-this pins every term (orientation goal, gripper/foot/torso proximity
+This pins every term (orientation goal, gripper/foot/torso proximity
 shaping, both anti-hack gripper penalties, fall penalty, control cost) by
 evaluating the reference arithmetic independently in numpy on random
 states/sensors/controls and requiring our jnp reward to match.

@@ -113,7 +113,7 @@ def test_visualizer_reset_and_pause_topics():
 
 
 def test_goal_marker_protocol_roundtrip():
-    """The draggable goal-marker flow at the protocol level (VERDICT r4):
+    """The draggable goal-marker flow at the protocol level:
 
     np_1d_field(xyz_vis_indices=...) must survive reflection and wire
     serialization (so the client can place the marker), and the exact
